@@ -38,13 +38,13 @@ def main(argv=None):
     import jax.numpy as jnp
     import numpy as np
 
-    from deepvcp_tpu import pretrained
-    from deepvcp_tpu.data import (
+    from deepvcp import pretrained
+    from deepvcp.data import (
         LidarLikeDataset,
         SyntheticDataset,
         batch_iterator,
     )
-    from deepvcp_tpu.utils.rotations import rotation_geodesic_deg
+    from deepvcp.utils.rotations import rotation_geodesic_deg
 
     N = args.num_points
     if args.kitti:
@@ -68,7 +68,7 @@ def main(argv=None):
 
     R_init = t_init = None
     if args.full_so3:
-        from deepvcp_tpu.initializer import so3_global_init
+        from deepvcp.initializer import so3_global_init
 
         init = so3_global_init(src, tgt)
         R_init, t_init = init.R, init.t

@@ -38,10 +38,10 @@ def main(argv=None):
     import jax.numpy as jnp
     import numpy as np
 
-    from deepvcp_tpu import DeepVCPConfig
-    from deepvcp_tpu.config import TrainConfig
-    from deepvcp_tpu.data import SyntheticDataset, batch_iterator
-    from deepvcp_tpu.train import MetricsLogger, Trainer
+    from deepvcp import DeepVCPConfig
+    from deepvcp.config import TrainConfig
+    from deepvcp.data import SyntheticDataset, batch_iterator
+    from deepvcp.train import MetricsLogger, Trainer
 
     model_cfg = (
         DeepVCPConfig.tiny(args.num_points, use_normal=False)

@@ -1,6 +1,6 @@
-// Native host-side point-cloud runtime for deepvcp_tpu.
+// Native host-side point-cloud runtime for deepvcp.
 //
-// The TPU owns the compute path (JAX/XLA/Pallas); this library owns the
+// The accelerator owns the compute path (JAX/XLA/Pallas); this library owns the
 // host-side data runtime the reference delegates to torch DataLoader +
 // the knn_cuda extension (SURVEY.md §2.11, §2.14): KITTI velodyne .bin
 // parsing, downsampling, and exact-reference-semantics geometry oracles

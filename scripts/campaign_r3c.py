@@ -78,18 +78,18 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    from deepvcp_tpu import DeepVCPConfig
-    from deepvcp_tpu.config import TrainConfig
-    from deepvcp_tpu.data import (
+    from deepvcp import DeepVCPConfig
+    from deepvcp.config import TrainConfig
+    from deepvcp.data import (
         LidarLikeDataset,
         SyntheticDataset,
         batch_iterator,
     )
-    from deepvcp_tpu.models import DeepVCP
-    from deepvcp_tpu.registration import Registrar
-    from deepvcp_tpu.train import Trainer
-    from deepvcp_tpu.train.trainer import make_eval_step
-    from deepvcp_tpu.utils.rotations import rotation_geodesic_deg
+    from deepvcp.models import DeepVCP
+    from deepvcp.registration import Registrar
+    from deepvcp.train import Trainer
+    from deepvcp.train.trainer import make_eval_step
+    from deepvcp.utils.rotations import rotation_geodesic_deg
 
     print(f"devices: {jax.devices()}", flush=True)
     t0 = time.time()
@@ -333,9 +333,9 @@ def main():
 
     # ---- Q6: odometry warm-start demo with A3 ------------------------------
     try:
-        from deepvcp_tpu.data.datasets import lidar_like_cloud
-        from deepvcp_tpu.odometry.pipeline import register_sequence
-        from deepvcp_tpu.utils.rotations import axis_angle_to_matrix
+        from deepvcp.data.datasets import lidar_like_cloud
+        from deepvcp.odometry.pipeline import register_sequence
+        from deepvcp.utils.rotations import axis_angle_to_matrix
 
         rng = np.random.default_rng(11)
         cloud = lidar_like_cloud(rng, N, max_range=LIDAR_RANGE).astype(
@@ -379,7 +379,7 @@ def main():
         import contextlib
         import io
 
-        from deepvcp_tpu import profile_stages
+        from deepvcp import profile_stages
 
         res = {}
         for b in (1, 8) if not TINY else (1,):

@@ -57,9 +57,9 @@ def main():
 
     import jax.numpy as jnp
 
-    from deepvcp_tpu import DeepVCPConfig
-    from deepvcp_tpu.data import batch_iterator
-    from deepvcp_tpu.train import Trainer
+    from deepvcp import DeepVCPConfig
+    from deepvcp.data import batch_iterator
+    from deepvcp.train import Trainer
 
     wait_for_device()
     c = Campaign("campaign_r4")
@@ -164,30 +164,6 @@ def main():
     sweep_phase("R1C_sweep", "model_r1c", cfg_ref_sem,
                 sets=("uniform_small",))
 
-    # salient_fps rides ops.farthest_point_sample's TPU Pallas dispatch;
-    # probe the kernel's Mosaic lowering first and fall back to the jnp
-    # FPS (DEEPVCP_FPS_PALLAS=0) if it fails, so a kernel regression
-    # cannot take down the R1S phase again (it did once: unaligned
-    # blocks, see fps_kernel.py docstring)
-    if not TINY:
-        try:
-            import numpy as _np
-
-            from deepvcp_tpu.ops.pallas.fps_kernel import (
-                farthest_point_sample_pallas,
-            )
-
-            probe_idx = _np.asarray(farthest_point_sample_pallas(
-                jnp.asarray(_np.random.default_rng(0).uniform(
-                    -1, 1, (2, 256, 3)).astype(_np.float32)), 64))
-            c.save("FPS_mosaic_probe", {"ok": True,
-                                        "first": int(probe_idx[0, 0])})
-        except Exception:
-            os.environ["DEEPVCP_FPS_PALLAS"] = "0"
-            c.save("FPS_mosaic_probe",
-                   {"ok": False, "fallback": "jnp FPS",
-                    "error": traceback.format_exc()[-1500:]})
-
     model_phase("R1S_salient_fps", "model_r1s", cfg_sfps, tcfg, "R1S")
     sweep_phase("R1S_sweep", "model_r1s", cfg_sfps,
                 sets=("uniform_small", "lidar_small"))
@@ -265,8 +241,8 @@ def main():
     if not c.done("CASCADE") and fine_src in trainers \
             and "model_fine" in trainers:
         try:
-            from deepvcp_tpu.registration import Registrar
-            from deepvcp_tpu.utils.rotations import rotation_geodesic_deg
+            from deepvcp.registration import Registrar
+            from deepvcp.utils.rotations import rotation_geodesic_deg
 
             coarse = Registrar(
                 cfg_fixed if fine_src == "model_r1" else cfg_sfps,

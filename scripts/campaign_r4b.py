@@ -17,9 +17,8 @@ VERDICT.md "Next round" items #3 and #5:
   Q5  trained-model engine delta (round-3 unfinished): train a windowed-
       engine model under the residual recipe at ModelNet scale, evaluate
       THE SAME weights under windowed AND dense engines;
-  Q7  roofline: profile_stages at B=1 and B=8 on the real TPU — the
-      batch-scaling attribution (which stage's per-pair cost grows with
-      B), committed as artifacts.
+  Q7  roofline: profile_stages at B=1 and B=8 — the batch-scaling
+      attribution (which stage's per-pair cost grows with B).
 
 Artifacts: artifacts/campaign_r4b/. Restart-safe like part 1.
 """
@@ -55,8 +54,8 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    from deepvcp_tpu import DeepVCPConfig
-    from deepvcp_tpu.data import LidarLikeDataset, batch_iterator
+    from deepvcp import DeepVCPConfig
+    from deepvcp.data import LidarLikeDataset, batch_iterator
 
     wait_for_device()
     c = Campaign("campaign_r4b")
@@ -143,16 +142,16 @@ def main():
     # ---- K2: odometry with warm start + pose graph --------------------------
     if trainer_k is not None and not c.done("K2_odometry"):
         try:
-            from deepvcp_tpu.data.datasets import lidar_like_cloud
-            from deepvcp_tpu.odometry.pipeline import register_sequence
-            from deepvcp_tpu.odometry.pose_graph import (
+            from deepvcp.data.datasets import lidar_like_cloud
+            from deepvcp.odometry.pipeline import register_sequence
+            from deepvcp.odometry.pose_graph import (
                 absolute_trajectory_error,
                 build_graph,
                 chain_poses,
                 optimize_pose_graph,
             )
-            from deepvcp_tpu.registration import Registrar
-            from deepvcp_tpu.utils.rotations import axis_angle_to_matrix
+            from deepvcp.registration import Registrar
+            from deepvcp.utils.rotations import axis_angle_to_matrix
 
             variables_k = variables_of(trainer_k)
             rng = np.random.default_rng(11)
@@ -237,9 +236,9 @@ def main():
 
     # ---- Q5: trained-model engine delta -------------------------------------
     # REDESIGNED TWICE this round, both times on measurement:
-    # 1. TRAINING windowed at N=10k runs at ~14 s/step on the v5e —
-    #    ~170x the banded step (83 ms; the backward re-materializes the
-    #    per-query window gathers). A 12-min budget sized from the
+    # 1. TRAINING windowed at N=10k runs ~170x slower than the banded
+    #    step (the backward re-materializes the per-query window
+    #    gathers). A 12-min budget sized from the
     #    banded probe would actually take ~33 h — the same pathology
     #    that killed round-3's model B3 in epoch 0.
     # 2. Banded-trained weights can NOT be re-evaluated under
@@ -260,9 +259,9 @@ def main():
 
             import jax.numpy as _jnp
 
-            from deepvcp_tpu.models import DeepVCP
-            from deepvcp_tpu.train import Trainer
-            from deepvcp_tpu.train.trainer import make_eval_step
+            from deepvcp.models import DeepVCP
+            from deepvcp.train import Trainer
+            from deepvcp.train.trainer import make_eval_step
             from campaign_r4_common import eval_on, make_data, train_model
 
             NQ = 128 if TINY else 2048
@@ -346,7 +345,7 @@ def main():
             import contextlib
             import io
 
-            from deepvcp_tpu import profile_stages
+            from deepvcp import profile_stages
 
             res = {}
             for b in ((1,) if TINY else (1, 8)):

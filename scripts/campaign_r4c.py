@@ -44,8 +44,8 @@ def main():
     if TINY:
         jax.config.update("jax_platforms", "cpu")
 
-    from deepvcp_tpu import DeepVCPConfig
-    from deepvcp_tpu.data import (
+    from deepvcp import DeepVCPConfig
+    from deepvcp.data import (
         LidarLikeDataset,
         SyntheticDataset,
         batch_iterator,

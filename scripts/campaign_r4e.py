@@ -40,8 +40,8 @@ def main():
     if TINY:
         jax.config.update("jax_platforms", "cpu")
 
-    from deepvcp_tpu import DeepVCPConfig
-    from deepvcp_tpu.data import LidarLikeDataset, batch_iterator
+    from deepvcp import DeepVCPConfig
+    from deepvcp.data import LidarLikeDataset, batch_iterator
 
     wait_for_device()
     c = Campaign("campaign_r4e")

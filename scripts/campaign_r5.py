@@ -59,8 +59,8 @@ def eval_reg(reg, dataset, batches=8):
     import jax.numpy as jnp
     import numpy as np
 
-    from deepvcp_tpu.data import batch_iterator
-    from deepvcp_tpu.utils.rotations import rotation_geodesic_deg
+    from deepvcp.data import batch_iterator
+    from deepvcp.utils.rotations import rotation_geodesic_deg
 
     rre = rte = score = rejects = total = 0.0
     n = 0
@@ -92,13 +92,13 @@ def main():
     if TINY:
         jax.config.update("jax_platforms", "cpu")
 
-    from deepvcp_tpu import DeepVCPConfig, pretrained
-    from deepvcp_tpu.data import (
+    from deepvcp import DeepVCPConfig, pretrained
+    from deepvcp.data import (
         LidarLikeDataset,
         SyntheticDataset,
         batch_iterator,
     )
-    from deepvcp_tpu.registration import CascadeRegistrar, Registrar
+    from deepvcp.registration import CascadeRegistrar, Registrar
 
     wait_for_device()
     c = Campaign("campaign_r5")

@@ -43,9 +43,9 @@ def main():
     if TINY:
         jax.config.update("jax_platforms", "cpu")
 
-    from deepvcp_tpu import DeepVCPConfig, pretrained
-    from deepvcp_tpu.data import LidarLikeDataset
-    from deepvcp_tpu.registration import CascadeRegistrar, Registrar
+    from deepvcp import DeepVCPConfig, pretrained
+    from deepvcp.data import LidarLikeDataset
+    from deepvcp.registration import CascadeRegistrar, Registrar
 
     wait_for_device()
     c = Campaign("campaign_r5c")
@@ -71,8 +71,8 @@ def main():
             neighbor_method="banded", spatial_extent=EXTENT, band_tile=64,
             tgt_knn="flat")
         cfg_fine = cfg_coarse
-        from deepvcp_tpu.data import batch_iterator
-        from deepvcp_tpu.models import DeepVCP
+        from deepvcp.data import batch_iterator
+        from deepvcp.models import DeepVCP
         import jax.numpy as jnp
 
         s, t, R, tt = next(batch_iterator(held, 1, 0, 0))

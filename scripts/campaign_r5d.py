@@ -37,13 +37,13 @@ def main():
     if TINY:
         jax.config.update("jax_platforms", "cpu")
 
-    from deepvcp_tpu import DeepVCPConfig, pretrained
-    from deepvcp_tpu.data import (
+    from deepvcp import DeepVCPConfig, pretrained
+    from deepvcp.data import (
         LidarLikeDataset,
         SyntheticDataset,
         batch_iterator,
     )
-    from deepvcp_tpu.registration import Registrar
+    from deepvcp.registration import Registrar
 
     wait_for_device()
     c = Campaign("campaign_r5d")

@@ -36,14 +36,14 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    from deepvcp_tpu import pretrained
-    from deepvcp_tpu.data import (
+    from deepvcp import pretrained
+    from deepvcp.data import (
         LidarLikeDataset,
         SyntheticDataset,
         batch_iterator,
     )
-    from deepvcp_tpu.initializer import so3_global_init
-    from deepvcp_tpu.utils.rotations import rotation_geodesic_deg
+    from deepvcp.initializer import so3_global_init
+    from deepvcp.utils.rotations import rotation_geodesic_deg
 
     wait_for_device()
     c = Campaign("campaign_r5f")

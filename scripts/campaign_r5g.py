@@ -44,9 +44,9 @@ def main():
     if TINY:
         jax.config.update("jax_platforms", "cpu")
 
-    from deepvcp_tpu import DeepVCPConfig, pretrained
-    from deepvcp_tpu.data import LidarLikeDataset, batch_iterator
-    from deepvcp_tpu.registration import CascadeRegistrar, Registrar
+    from deepvcp import DeepVCPConfig, pretrained
+    from deepvcp.data import LidarLikeDataset, batch_iterator
+    from deepvcp.registration import CascadeRegistrar, Registrar
 
     wait_for_device()
     c = Campaign("campaign_r5g")

@@ -31,16 +31,16 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    from deepvcp_tpu import pretrained
-    from deepvcp_tpu.data.datasets import lidar_like_cloud
-    from deepvcp_tpu.odometry.pipeline import register_sequence
-    from deepvcp_tpu.odometry.pose_graph import (
+    from deepvcp import pretrained
+    from deepvcp.data.datasets import lidar_like_cloud
+    from deepvcp.odometry.pipeline import register_sequence
+    from deepvcp.odometry.pose_graph import (
         absolute_trajectory_error,
         build_graph,
         chain_poses,
         optimize_pose_graph,
     )
-    from deepvcp_tpu.utils.rotations import axis_angle_to_matrix
+    from deepvcp.utils.rotations import axis_angle_to_matrix
 
     wait_for_device()
     c = Campaign("campaign_r5h")

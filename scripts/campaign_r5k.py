@@ -34,9 +34,9 @@ def main():
     if TINY:
         jax.config.update("jax_platforms", "cpu")
 
-    from deepvcp_tpu import DeepVCPConfig, pretrained
-    from deepvcp_tpu.data import LidarLikeDataset, batch_iterator
-    from deepvcp_tpu.registration import Registrar
+    from deepvcp import DeepVCPConfig, pretrained
+    from deepvcp.data import LidarLikeDataset, batch_iterator
+    from deepvcp.registration import Registrar
 
     wait_for_device()
     c = Campaign("campaign_r5k")

@@ -15,9 +15,9 @@ import numpy as np
 import jax.numpy as jnp
 import orbax.checkpoint as ocp
 
-from deepvcp_tpu import DeepVCPConfig
-from deepvcp_tpu.data import SyntheticDataset, LidarLikeDataset, batch_iterator
-from deepvcp_tpu.models import DeepVCP
+from deepvcp import DeepVCPConfig
+from deepvcp.data import SyntheticDataset, LidarLikeDataset, batch_iterator
+from deepvcp.models import DeepVCP
 
 N = int(os.environ.get("DIAG_N", "10000"))
 cfg = DeepVCPConfig(num_points=N, use_normal=False, spatial_extent=2.5, neighbor_method=os.environ.get("DIAG_ENGINE", "banded"))
@@ -30,8 +30,8 @@ held_l = LidarLikeDataset(num_clouds=2, num_points=N, max_range=1.0,
                           seed=101, max_rotation_deg=10.0,
                           max_translation=0.5)
 
-from deepvcp_tpu.config import TrainConfig
-from deepvcp_tpu.train import Trainer
+from deepvcp.config import TrainConfig
+from deepvcp.train import Trainer
 
 sample = next(batch_iterator(held_u, 1, epoch=0, seed=7))
 # TrainConfig must match the campaign's (the opt_state tree includes the

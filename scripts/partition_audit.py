@@ -37,11 +37,11 @@ jax.config.update("jax_platforms", "cpu")
 
 
 def build_step(mesh, batch_size, num_points):
-    from deepvcp_tpu import DeepVCPConfig
-    from deepvcp_tpu.config import TrainConfig
-    from deepvcp_tpu.models import DeepVCP
-    from deepvcp_tpu.parallel import shard_batch
-    from deepvcp_tpu.train.trainer import (
+    from deepvcp import DeepVCPConfig
+    from deepvcp.config import TrainConfig
+    from deepvcp.models import DeepVCP
+    from deepvcp.parallel import shard_batch
+    from deepvcp.train.trainer import (
         create_train_state,
         make_train_step,
     )
@@ -83,7 +83,7 @@ def audit(mesh, batch_size, num_points):
 def main():
     import numpy as np
 
-    from deepvcp_tpu.parallel import make_mesh
+    from deepvcp.parallel import make_mesh
 
     N = int(os.environ.get("AUDIT_N", "10000"))
     B = 4

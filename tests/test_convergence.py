@@ -5,10 +5,10 @@ reference never had."""
 import numpy as np
 import pytest
 
-from deepvcp_tpu import DeepVCPConfig
-from deepvcp_tpu.config import TrainConfig
-from deepvcp_tpu.data import SyntheticDataset, batch_iterator
-from deepvcp_tpu.train import Trainer
+from deepvcp import DeepVCPConfig
+from deepvcp.config import TrainConfig
+from deepvcp.data import SyntheticDataset, batch_iterator
+from deepvcp.train import Trainer
 
 
 @pytest.mark.slow
@@ -49,8 +49,8 @@ def test_overfit_recovers_pose_gt_free():
     import jax
     import jax.numpy as jnp
 
-    from deepvcp_tpu.loss.registration import svd_refine
-    from deepvcp_tpu.utils import rotation_geodesic_deg, translation_error
+    from deepvcp.loss.registration import svd_refine
+    from deepvcp.utils import rotation_geodesic_deg, translation_error
 
     model_cfg = DeepVCPConfig.tiny(num_points=64, use_normal=False)
     # train-mode statistics converge by ~100 steps; the EVAL-mode (running

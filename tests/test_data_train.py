@@ -7,16 +7,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from deepvcp_tpu import DeepVCPConfig
-from deepvcp_tpu.config import TrainConfig
-from deepvcp_tpu.data import (
+from deepvcp import DeepVCPConfig
+from deepvcp.config import TrainConfig
+from deepvcp.data import (
     KITTIDataset,
     ModelNet40Dataset,
     SyntheticDataset,
     batch_iterator,
     make_pair,
 )
-from deepvcp_tpu.train import Trainer
+from deepvcp.train import Trainer
 
 
 class TestTransforms:
@@ -148,8 +148,8 @@ class TestTrainer:
         assert norm(restored) == pytest.approx(norm(before), rel=1e-6)
 
         # architecture provenance (review finding): the D12-D14 flags are
-        # shape-compatible, so a mismatched load succeeds silently at the
-        # orbax layer — the trainer must warn.
+        # shape-compatible, so a mismatched load restores without error —
+        # the trainer must warn.
         import dataclasses
         import warnings as _warnings
 
@@ -184,8 +184,8 @@ class TestResidualInit:
     for a model trained only on exact GT inits)."""
 
     def test_parity_mode_is_exact(self):
-        from deepvcp_tpu.train.trainer import _train_init_pose
-        from deepvcp_tpu.config import TrainConfig
+        from deepvcp.train.trainer import _train_init_pose
+        from deepvcp.config import TrainConfig
 
         rng = np.random.default_rng(0)
         R = jnp.asarray(rng.standard_normal((2, 3, 3)).astype(np.float32))
@@ -197,9 +197,9 @@ class TestResidualInit:
         np.testing.assert_array_equal(np.asarray(t_i), 0.0)
 
     def test_jitter_bounds_and_determinism(self):
-        from deepvcp_tpu.train.trainer import _train_init_pose
-        from deepvcp_tpu.config import TrainConfig
-        from deepvcp_tpu.utils import (
+        from deepvcp.train.trainer import _train_init_pose
+        from deepvcp.config import TrainConfig
+        from deepvcp.utils import (
             random_rotation,
             rotation_geodesic_deg,
         )
@@ -235,8 +235,8 @@ class TestResidualInit:
         np.testing.assert_allclose(np.asarray(t_re), seen[0][1], atol=1e-7)
 
     def test_bad_mode_raises(self):
-        from deepvcp_tpu.train.trainer import _train_init_pose
-        from deepvcp_tpu.config import TrainConfig
+        from deepvcp.train.trainer import _train_init_pose
+        from deepvcp.config import TrainConfig
 
         R = jnp.eye(3)[None]
         t = jnp.zeros((1, 3))
@@ -301,8 +301,8 @@ class TestConfigValidation:
 class TestRegistrar:
     def test_register_without_ground_truth(self):
         """The inference path must work with identity init and no GT."""
-        from deepvcp_tpu.registration import Registrar
-        from deepvcp_tpu.models import DeepVCP
+        from deepvcp.registration import Registrar
+        from deepvcp.models import DeepVCP
         import jax
 
         cfg = DeepVCPConfig.tiny(num_points=64, use_normal=False)
@@ -327,8 +327,8 @@ class TestRegistrar:
         with pass 1's pose: its output differs from pass 1 and stays a
         proper rigid transform. (Accuracy evidence lives in the training
         campaign; this pins the mechanics.)"""
-        from deepvcp_tpu.registration import Registrar
-        from deepvcp_tpu.models import DeepVCP
+        from deepvcp.registration import Registrar
+        from deepvcp.models import DeepVCP
         import jax
 
         cfg = DeepVCPConfig.tiny(num_points=64, use_normal=False)
@@ -370,10 +370,10 @@ class TestRegistrar:
         minimum of RegistrationOutput.scores, including the caller's init
         (round-3 finding: unguarded refinement DIVERGED 20.6 -> 78 deg on
         a parity-trained model, artifacts/campaign_r3c Q4)."""
-        from deepvcp_tpu.loss.registration import svd_refine
-        from deepvcp_tpu.models import DeepVCP
-        from deepvcp_tpu.ops import apply_rigid, square_distance
-        from deepvcp_tpu.registration import Registrar
+        from deepvcp.loss.registration import svd_refine
+        from deepvcp.models import DeepVCP
+        from deepvcp.ops import apply_rigid, square_distance
+        from deepvcp.registration import Registrar
         import jax
 
         cfg = DeepVCPConfig.tiny(num_points=64, use_normal=False)
@@ -428,8 +428,8 @@ class TestRegistrar:
         to avoid (round-2 review finding)."""
         import warnings
 
-        from deepvcp_tpu.registration import Registrar
-        from deepvcp_tpu.models import DeepVCP
+        from deepvcp.registration import Registrar
+        from deepvcp.models import DeepVCP
         import jax
 
         cfg = DeepVCPConfig.tiny(num_points=64, use_normal=False)
@@ -453,8 +453,8 @@ class TestRegistrar:
     def test_stream_matches_per_call(self):
         """stream() must yield the same outputs, in order, as per-call
         registration (it only changes dispatch overlap)."""
-        from deepvcp_tpu.registration import Registrar
-        from deepvcp_tpu.models import DeepVCP
+        from deepvcp.registration import Registrar
+        from deepvcp.models import DeepVCP
         import jax
 
         cfg = DeepVCPConfig.tiny(num_points=64, use_normal=False)
@@ -484,8 +484,8 @@ class TestRegistrar:
 
 class TestSmallMotionPairs:
     def test_bounded_rotation(self):
-        from deepvcp_tpu.data import SyntheticDataset
-        from deepvcp_tpu.utils import rotation_geodesic_deg
+        from deepvcp.data import SyntheticDataset
+        from deepvcp.utils import rotation_geodesic_deg
 
         ds = SyntheticDataset(
             num_clouds=8, num_points=32, extent=2.0,
@@ -506,7 +506,7 @@ class TestSmallMotionPairs:
             )
 
     def test_lidar_like_dataset(self):
-        from deepvcp_tpu.data import LidarLikeDataset
+        from deepvcp.data import LidarLikeDataset
 
         ds = LidarLikeDataset(num_clouds=2, num_points=256, max_range=10.0)
         p = ds.sample(0, np.random.default_rng(0))
@@ -519,8 +519,8 @@ class TestGtFreeEval:
         """Trainer.evaluate must report warm-started AND identity-init
         (GT-free) RRE/RTE (round-2 review: eval warm-starting with R_gt
         overstated capability with nothing honest alongside)."""
-        from deepvcp_tpu.data import SyntheticDataset, batch_iterator
-        from deepvcp_tpu.train import Trainer
+        from deepvcp.data import SyntheticDataset, batch_iterator
+        from deepvcp.train import Trainer
 
         cfg = DeepVCPConfig.tiny(num_points=64, use_normal=False)
         tcfg = TrainConfig(

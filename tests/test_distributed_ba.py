@@ -5,15 +5,15 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from deepvcp_tpu.odometry import (
+from deepvcp.odometry import (
     build_graph,
     chain_poses,
     exp_so3,
     optimize_pose_graph,
     optimize_pose_graph_sharded,
 )
-from deepvcp_tpu.parallel import make_mesh
-from deepvcp_tpu.utils import rotation_geodesic_deg
+from deepvcp.parallel import make_mesh
+from deepvcp.utils import rotation_geodesic_deg
 
 
 def _trajectory(F, rng, noise=0.03):

@@ -4,8 +4,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from deepvcp_tpu import ops
-from deepvcp_tpu.models.extra_layers import FeaturePropagation, SetAbstractionMSG
+from deepvcp import ops
+from deepvcp.models.extra_layers import FeaturePropagation, SetAbstractionMSG
 
 
 def _rand(shape, seed=0, scale=1.0):
@@ -78,7 +78,7 @@ class TestFeaturePropagation:
 
 class TestProfiling:
     def test_stage_timer(self):
-        from deepvcp_tpu.utils.profiling import StageTimer
+        from deepvcp.utils.profiling import StageTimer
 
         timer = StageTimer()
         x = _rand((64, 64), 10)

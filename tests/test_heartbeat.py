@@ -6,7 +6,7 @@ import time
 
 import pytest
 
-from deepvcp_tpu.parallel import (
+from deepvcp.parallel import (
     Heartbeat,
     PeerFailure,
     Watchdog,
@@ -104,10 +104,10 @@ def test_trainer_single_process_heartbeat(tmp_path):
 
     import jax
 
-    from deepvcp_tpu import DeepVCPConfig
-    from deepvcp_tpu.config import TrainConfig
-    from deepvcp_tpu.data import SyntheticDataset, batch_iterator
-    from deepvcp_tpu.train import Trainer
+    from deepvcp import DeepVCPConfig
+    from deepvcp.config import TrainConfig
+    from deepvcp.data import SyntheticDataset, batch_iterator
+    from deepvcp.train import Trainer
 
     model_cfg = DeepVCPConfig.tiny(num_points=64, use_normal=False)
     tcfg = TrainConfig(

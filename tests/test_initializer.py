@@ -1,4 +1,4 @@
-"""Global SO(3) initializer (deepvcp_tpu/initializer.py): coarse
+"""Global SO(3) initializer (deepvcp/initializer.py): coarse
 alignment must bring unrestricted-SO(3) pairs into the local refiner's
 basin (round-4 verdict missing #3)."""
 
@@ -8,8 +8,8 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from deepvcp_tpu.initializer import so3_global_init, super_fibonacci_rotations
-from deepvcp_tpu.utils.rotations import rotation_geodesic_deg
+from deepvcp.initializer import so3_global_init, super_fibonacci_rotations
+from deepvcp.utils.rotations import rotation_geodesic_deg
 
 
 def test_super_fibonacci_grid_is_rotations():
@@ -28,7 +28,7 @@ def test_super_fibonacci_grid_is_rotations():
 
 
 def test_full_so3_pairs_enter_basin():
-    from deepvcp_tpu.data import SyntheticDataset, batch_iterator
+    from deepvcp.data import SyntheticDataset, batch_iterator
 
     ds = SyntheticDataset(num_clouds=4, num_points=512, extent=1.0,
                           seed=102)  # full-SO(3) rotations by default
@@ -45,7 +45,7 @@ def test_full_so3_pairs_enter_basin():
 
 
 def test_deterministic():
-    from deepvcp_tpu.data import SyntheticDataset, batch_iterator
+    from deepvcp.data import SyntheticDataset, batch_iterator
 
     ds = SyntheticDataset(num_clouds=2, num_points=256, extent=1.0,
                           seed=103)
@@ -61,7 +61,7 @@ def test_sparse_target_coverage_regression():
     subsample's NN spacing must not swamp the rotation signal. N=4096
     with the default n_tgt cap must still land inside the basin (the
     old n_tgt=1024 default returned ~random rotations here)."""
-    from deepvcp_tpu.data import SyntheticDataset, batch_iterator
+    from deepvcp.data import SyntheticDataset, batch_iterator
 
     ds = SyntheticDataset(num_clouds=2, num_points=4096, extent=1.0,
                           seed=104, noise_std=0.01)
@@ -77,7 +77,7 @@ def test_dense_cloud_symmetry_twins_regression():
     dense cloud + near-symmetric support. The ICP-all design must land
     every pair in the refiner's basin; the retired sweep-then-refine
     designs locked onto octahedral twins (~90-180 deg) on such pairs."""
-    from deepvcp_tpu.data import SyntheticDataset, batch_iterator
+    from deepvcp.data import SyntheticDataset, batch_iterator
 
     ds = SyntheticDataset(num_clouds=2, num_points=10000, extent=1.0,
                           seed=102, noise_std=0.01)

@@ -7,14 +7,14 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from deepvcp_tpu.odometry import chain_poses, exp_so3
-from deepvcp_tpu.odometry.pose_graph import (
+from deepvcp.odometry import chain_poses, exp_so3
+from deepvcp.odometry.pose_graph import (
     LandmarkObs,
     build_graph,
     optimize_landmark_ba,
 )
-from deepvcp_tpu.parallel import make_mesh
-from deepvcp_tpu.utils import rotation_geodesic_deg
+from deepvcp.parallel import make_mesh
+from deepvcp.utils import rotation_geodesic_deg
 
 
 def _scene(rng, F=6, L=40, obs_noise=0.005):
@@ -147,7 +147,7 @@ def test_ba_improves_noisy_odometry_ate():
     """The odometry story: noisy chained relative poses diverge; adding
     landmark observations and running BA must cut the trajectory error
     vs the pose-only graph optimum."""
-    from deepvcp_tpu.odometry import (
+    from deepvcp.odometry import (
         absolute_trajectory_error,
         optimize_pose_graph,
     )

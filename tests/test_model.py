@@ -6,10 +6,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from deepvcp_tpu import DeepVCPConfig
-from deepvcp_tpu.loss import deepvcp_loss
-from deepvcp_tpu.models import DeepVCP
-from deepvcp_tpu.utils import random_rotation
+from deepvcp import DeepVCPConfig
+from deepvcp.loss import deepvcp_loss
+from deepvcp.models import DeepVCP
+from deepvcp.utils import random_rotation
 
 
 @pytest.fixture(scope="module")
@@ -77,7 +77,7 @@ class TestForward:
         the candidate bounding box around the warm-started keypoints."""
         cfg, model, variables, src, R, t = tiny_setup
         kp, vcp, _ = model.apply(variables, src, src, R, t, train=False)
-        from deepvcp_tpu.ops import apply_rigid
+        from deepvcp.ops import apply_rigid
 
         kp_warm = apply_rigid(kp, R, t)
         extent = cfg.search_radius + cfg.voxel_len
@@ -87,7 +87,7 @@ class TestForward:
 class TestLossIntegration:
     def test_loss_and_grads_finite(self, tiny_setup):
         cfg, model, variables, src, R, t = tiny_setup
-        from deepvcp_tpu.ops import apply_rigid
+        from deepvcp.ops import apply_rigid
 
         tgt = apply_rigid(src[..., :3], R, t)
         tgt = jnp.concatenate([tgt, src[..., 3:]], axis=-1)
@@ -111,8 +111,8 @@ class TestLossIntegration:
         ground-truth-transformed keypoints, loss ~ 0 and the solved pose
         matches (R_true, t_true) (SURVEY.md §4)."""
         cfg, model, variables, src, R, t = tiny_setup
-        from deepvcp_tpu.ops import apply_rigid
-        from deepvcp_tpu.utils import rotation_geodesic_deg, translation_error
+        from deepvcp.ops import apply_rigid
+        from deepvcp.utils import rotation_geodesic_deg, translation_error
 
         kp, _, _ = model.apply(variables, src, src, R, t, train=False)
         y_perfect = apply_rigid(kp, R, t)
@@ -126,15 +126,15 @@ class TestLossRobustness:
     def test_outlier_rejection_recovers_pose(self):
         """Corrupt 15% of correspondences; the two-pass solve must still
         recover the pose (ref deepVCP_loss.py:57-90 capability)."""
-        from deepvcp_tpu.loss import deepvcp_loss
-        from deepvcp_tpu.ops import apply_rigid
-        from deepvcp_tpu.utils import (
+        from deepvcp.loss import deepvcp_loss
+        from deepvcp.ops import apply_rigid
+        from deepvcp.utils import (
             random_rotation,
             rotation_geodesic_deg,
             translation_error,
         )
 
-        from deepvcp_tpu.ops import kabsch
+        from deepvcp.ops import kabsch
 
         rng = np.random.default_rng(2)
         x = jnp.asarray(rng.uniform(-2, 2, (1, 64, 3)).astype(np.float32))
@@ -306,8 +306,6 @@ class TestOracleRegistration:
         and its grid average is biased (D12)."""
         import dataclasses
 
-        import flax
-
         cfg = dataclasses.replace(
             DeepVCPConfig.tiny(num_points=96, use_normal=False),
             neighbor_method="dense",
@@ -327,7 +325,7 @@ class TestOracleRegistration:
         variables = model.init(
             jax.random.key(11), src, tgt, R_true, t_true, train=False
         )
-        params = flax.core.unfreeze(variables["params"])
+        params = jax.tree_util.tree_map(lambda x: x, variables["params"])
         cpg = params["cpg"]
         beta = 100.0
         for li, name in enumerate(sorted(cpg.keys())):
@@ -336,7 +334,7 @@ class TestOracleRegistration:
             k[1, 1, 1, :, :] = scale
             cpg[name]["kernel"] = jnp.asarray(k)
             cpg[name]["bias"] = jnp.zeros_like(cpg[name]["bias"])
-        variables = {**variables, "params": flax.core.freeze(params)}
+        variables = {**variables, "params": params}
 
         kp, vcp, aux = model.apply(
             variables, src, tgt, R_true, t_true, train=False
@@ -344,7 +342,7 @@ class TestOracleRegistration:
         err = np.abs(np.asarray(vcp) - (np.asarray(kp) + np.asarray(t_true)[:, None, :]))
         assert err.max() < 5e-3, f"VCP error {err.max()} — oracle broken"
 
-        from deepvcp_tpu.loss import svd_refine
+        from deepvcp.loss import svd_refine
 
         ref = svd_refine(kp, vcp)
         np.testing.assert_allclose(
@@ -371,8 +369,6 @@ class TestOracleRegistration:
         R_true^T the sets would differ by R_true^2 and the oracle fails."""
         import dataclasses
 
-        import flax
-
         cfg = dataclasses.replace(
             DeepVCPConfig.tiny(num_points=96, use_normal=False),
             neighbor_method="dense",
@@ -395,7 +391,7 @@ class TestOracleRegistration:
         variables = model.init(
             jax.random.key(11), src, tgt, R_true, t_true, train=False
         )
-        params = flax.core.unfreeze(variables["params"])
+        params = jax.tree_util.tree_map(lambda x: x, variables["params"])
         # zero the FE: rotation-variant features out of the comparison
         params["fe"] = jax.tree_util.tree_map(
             jnp.zeros_like, params["fe"]
@@ -408,7 +404,7 @@ class TestOracleRegistration:
             k[1, 1, 1, :, :] = scale
             cpg[name]["kernel"] = jnp.asarray(k)
             cpg[name]["bias"] = jnp.zeros_like(cpg[name]["bias"])
-        variables = {**variables, "params": flax.core.freeze(params)}
+        variables = {**variables, "params": params}
 
         kp, vcp, aux = model.apply(
             variables, src, tgt, R_true, t_true, train=False
@@ -419,7 +415,7 @@ class TestOracleRegistration:
         err = np.abs(np.asarray(vcp) - kp_true)
         assert err.max() < 5e-3, f"VCP error {err.max()} — rotation oracle"
 
-        from deepvcp_tpu.loss import svd_refine
+        from deepvcp.loss import svd_refine
 
         ref = svd_refine(kp, vcp)
         np.testing.assert_allclose(
@@ -440,7 +436,7 @@ class TestOracleRegistration:
         tgt = jnp.asarray(rng.uniform(-2, 2, (1, 96, 3)).astype(np.float32))
         eye = jnp.eye(3, dtype=jnp.float32)[None]
         t0 = jnp.zeros((1, 3), jnp.float32)
-        from deepvcp_tpu.utils import random_rotation
+        from deepvcp.utils import random_rotation
 
         Rr = jnp.asarray(
             np.asarray(random_rotation(np.random.default_rng(4)))[None]
@@ -471,7 +467,7 @@ class TestRegistrarExtentMonitor:
         Registrar is later fed differently-scaled clouds."""
         import warnings
 
-        from deepvcp_tpu.registration import Registrar
+        from deepvcp.registration import Registrar
 
         cfg = DeepVCPConfig.tiny(num_points=96, use_normal=False)
         model = DeepVCP(cfg=cfg)
@@ -515,7 +511,7 @@ class TestCascadeRegistrar:
         every stage boundary."""
         import dataclasses
 
-        from deepvcp_tpu.registration import CascadeRegistrar, Registrar
+        from deepvcp.registration import CascadeRegistrar, Registrar
 
         cfg_c = DeepVCPConfig.tiny(num_points=96, use_normal=False)
         cfg_f = dataclasses.replace(
@@ -554,7 +550,7 @@ class TestCascadeRegistrar:
     def test_cascade_rejects_mismatched_stages(self):
         import dataclasses
 
-        from deepvcp_tpu.registration import CascadeRegistrar, Registrar
+        from deepvcp.registration import CascadeRegistrar, Registrar
 
         cfg_a = DeepVCPConfig.tiny(num_points=96, use_normal=False)
         cfg_b = dataclasses.replace(cfg_a, num_points=128)

@@ -71,7 +71,7 @@ class TestInitializeErrors:
         code = (
             "import jax\n"
             "jax.config.update('jax_platforms', 'cpu')\n"
-            "from deepvcp_tpu.parallel.multihost import initialize_multihost\n"
+            "from deepvcp.parallel.multihost import initialize_multihost\n"
             "try:\n"
             "    initialize_multihost('definitely-not-a-host:1', 2, 5)\n"
             "except Exception as e:\n"

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from deepvcp_tpu import native
+from deepvcp import native
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -49,7 +49,7 @@ class TestFPSOracle:
     def test_matches_jnp_kernel(self):
         import jax.numpy as jnp
 
-        from deepvcp_tpu import ops
+        from deepvcp import ops
 
         rng = np.random.default_rng(4)
         xyz = rng.standard_normal((60, 3)).astype(np.float32)
@@ -64,7 +64,7 @@ class TestBallQueryOracle:
     def test_matches_jnp_kernel(self):
         import jax.numpy as jnp
 
-        from deepvcp_tpu import ops
+        from deepvcp import ops
 
         rng = np.random.default_rng(5)
         xyz = rng.standard_normal((50, 3)).astype(np.float32)
@@ -101,7 +101,7 @@ class TestNativeVsNumpyReaders:
         return path, scan
 
     def test_raw_read_byte_for_byte(self, tmp_path):
-        from deepvcp_tpu.data.datasets import read_velodyne_bin
+        from deepvcp.data.datasets import read_velodyne_bin
 
         path, scan = self._write_scan(tmp_path)
         got = native.velodyne_load(path)
@@ -115,7 +115,7 @@ class TestNativeVsNumpyReaders:
     def test_downsample_same_point_set_when_n_equals_total(self, tmp_path):
         """At n == total both paths must return the full point set (the
         native path may permute; compare sorted rows bitwise)."""
-        from deepvcp_tpu.data.datasets import read_velodyne_bin
+        from deepvcp.data.datasets import read_velodyne_bin
 
         path, scan = self._write_scan(tmp_path, n=200, seed=1)
         got = native.velodyne_load_downsample(path, 200, seed=3)

@@ -5,8 +5,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from deepvcp_tpu import ops
-from deepvcp_tpu.ops import neighbors as nb
+from deepvcp import ops
+from deepvcp.ops import neighbors as nb
 
 
 def _rand(shape, seed=0, scale=1.0):
@@ -143,7 +143,7 @@ class TestDensityGradient:
     windowed under-coverage — round-1/2 review finding)."""
 
     def _cloud(self, n=4096, seed=0):
-        from deepvcp_tpu.data.datasets import lidar_like_cloud
+        from deepvcp.data.datasets import lidar_like_cloud
 
         rng = np.random.default_rng(seed)
         return lidar_like_cloud(rng, n, max_range=10.0).astype(np.float32)
@@ -187,9 +187,8 @@ class TestDensityGradient:
         """An SA stage fed a deliberately under-sized window must produce
         ZERO pooled features for zero-hit rows, not a far point's geometry
         (the round-1 pollution finding, now wired through return_count)."""
-        import flax.linen as nn_  # noqa: F401
-        from deepvcp_tpu.config import SALayerConfig
-        from deepvcp_tpu.models.layers import SetAbstraction
+        from deepvcp.config import SALayerConfig
+        from deepvcp.models.layers import SetAbstraction
 
         # deterministic zero-hit construction: a 900-point "wall" that
         # shares the query's sort-axis slab but sits 100 units away in y —
@@ -232,8 +231,8 @@ class TestDensityGradient:
     def test_model_forward_finite_on_gradient_cloud(self, method):
         """All three neighbor engines must produce finite outputs on the
         density-gradient cloud (garbage gathers masked, no NaN/inf)."""
-        from deepvcp_tpu import DeepVCPConfig
-        from deepvcp_tpu.models import DeepVCP
+        from deepvcp import DeepVCPConfig
+        from deepvcp.models import DeepVCP
 
         n = 512
         xyz = self._cloud(n=n, seed=3)[None]

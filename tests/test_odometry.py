@@ -4,7 +4,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from deepvcp_tpu.odometry import (
+from deepvcp.odometry import (
     absolute_trajectory_error,
     build_graph,
     chain_poses,
@@ -13,7 +13,7 @@ from deepvcp_tpu.odometry import (
     optimize_pose_graph,
     relative_pose_errors,
 )
-from deepvcp_tpu.utils import random_rotation, rotation_geodesic_deg
+from deepvcp.utils import random_rotation, rotation_geodesic_deg
 
 
 class TestSO3:
@@ -201,7 +201,7 @@ class TestWarmStartSequence:
         return poses
 
     def test_warm_start_succeeds_where_identity_fails(self):
-        from deepvcp_tpu.odometry.pipeline import register_sequence
+        from deepvcp.odometry.pipeline import register_sequence
 
         poses = self._accelerating_sequence()
         scans = np.zeros((len(poses) + 1, 16, 3), np.float32)

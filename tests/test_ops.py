@@ -6,7 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from deepvcp_tpu import ops
+from deepvcp import ops
 
 
 def _rand(shape, seed=0, scale=1.0):
@@ -103,10 +103,9 @@ class TestKNN:
 
     @pytest.mark.parametrize("chunk", [None, 16])
     def test_approx_knn_matches_exact(self, chunk):
-        # On CPU approx_min_k lowers to an exact reduction, so approx_knn
-        # must agree with the brute-force oracle (recall on TPU is the
-        # recall_target knob; measured 0.978 at the model operating point).
-        from deepvcp_tpu.ops.knn import approx_knn
+        # On CPU and GPU approx_min_k lowers to an exact reduction, so
+        # approx_knn must agree with the brute-force oracle.
+        from deepvcp.ops.knn import approx_knn
 
         ref = _rand((2, 40, 3), 13)
         query = _rand((2, 21, 3), 14)
@@ -127,11 +126,11 @@ class TestKNN:
     def test_bf16_selection_survives_coordinate_offset(self):
         """Review finding: the old all-bf16 d^2 expansion lost tens of m^2
         to catastrophic cancellation at KITTI-scale absolute coordinates.
-        The fixed path (center on the reference mean, f32 MXU accumulation,
+        The fixed path (center on the reference mean, f32 accumulation,
         f32 combine, cast only the final tile) must keep near-perfect
         selection overlap when the same cloud is shifted far from the
         origin."""
-        from deepvcp_tpu.ops.knn import approx_knn, knn
+        from deepvcp.ops.knn import approx_knn, knn
 
         rng = np.random.default_rng(21)
         ref = rng.uniform(-10, 10, (1, 400, 3)).astype(np.float32)
@@ -226,7 +225,7 @@ class TestVoxelize:
 class TestKabsch:
     def test_recovers_known_transform(self):
         rng = np.random.default_rng(16)
-        from deepvcp_tpu.utils import random_rotation
+        from deepvcp.utils import random_rotation
 
         x = _rand((2, 40, 3), 17)
         R_true = np.stack([random_rotation(rng) for _ in range(2)]).astype(np.float32)
@@ -247,7 +246,7 @@ class TestKabsch:
 
     def test_weighted(self):
         rng = np.random.default_rng(18)
-        from deepvcp_tpu.utils import random_rotation
+        from deepvcp.utils import random_rotation
 
         x = _rand((1, 30, 3), 19)
         R_true = random_rotation(rng).astype(np.float32)[None]
@@ -277,7 +276,7 @@ class TestKabsch:
 class TestApplyRigid:
     def test_roundtrip(self):
         rng = np.random.default_rng(22)
-        from deepvcp_tpu.utils import random_rotation
+        from deepvcp.utils import random_rotation
 
         x = jnp.asarray(_rand((2, 12, 3), 23))
         R = jnp.asarray(np.stack([random_rotation(rng) for _ in range(2)]).astype(np.float32))

@@ -6,12 +6,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from deepvcp_tpu import DeepVCPConfig
-from deepvcp_tpu.config import TrainConfig
-from deepvcp_tpu.data import SyntheticDataset, batch_iterator
-from deepvcp_tpu.models import DeepVCP
-from deepvcp_tpu.parallel import make_mesh, shard_batch
-from deepvcp_tpu.train.trainer import create_train_state, make_train_step
+from deepvcp import DeepVCPConfig
+from deepvcp.config import TrainConfig
+from deepvcp.data import SyntheticDataset, batch_iterator
+from deepvcp.models import DeepVCP
+from deepvcp.parallel import make_mesh, shard_batch
+from deepvcp.train.trainer import create_train_state, make_train_step
 
 
 @pytest.fixture(scope="module")

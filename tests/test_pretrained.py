@@ -1,4 +1,4 @@
-"""Pretrained-checkpoint registry (deepvcp_tpu/pretrained.py).
+"""Pretrained-checkpoint registry (deepvcp/pretrained.py).
 
 The reference ships no weights (README tells users to train from
 scratch); this framework commits campaign checkpoints and exposes them
@@ -12,7 +12,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from deepvcp_tpu import pretrained
+from deepvcp import pretrained
 
 
 def test_available_lists_all():
@@ -48,8 +48,8 @@ def test_unknown_name_raises():
 
 
 def test_registrar_end_to_end():
-    from deepvcp_tpu.data import SyntheticDataset, batch_iterator
-    from deepvcp_tpu.utils.rotations import rotation_geodesic_deg
+    from deepvcp.data import SyntheticDataset, batch_iterator
+    from deepvcp.utils.rotations import rotation_geodesic_deg
 
     try:
         reg = pretrained.registrar("modelnet-fine", num_points=256,
@@ -80,7 +80,7 @@ def test_registrar_end_to_end():
 
 
 def test_cascade_end_to_end():
-    from deepvcp_tpu.registration import CascadeRegistrar
+    from deepvcp.registration import CascadeRegistrar
 
     try:
         casc = pretrained.cascade("modelnet-cascade", num_points=256)
@@ -88,7 +88,7 @@ def test_cascade_end_to_end():
         pytest.skip("cascade stage checkpoints not present")
     assert isinstance(casc, CascadeRegistrar)
     # per-entry refine_iters: (2, 1) => score blocks of 3 + 2 columns
-    from deepvcp_tpu.data import SyntheticDataset, batch_iterator
+    from deepvcp.data import SyntheticDataset, batch_iterator
 
     ds = SyntheticDataset(num_clouds=2, num_points=256, extent=1.0,
                           seed=100, max_rotation_deg=10.0,
@@ -117,10 +117,10 @@ def test_arch_provenance_sa_radii_and_unapplied_keys(tmp_path, monkeypatch):
 
     entry = pretrained.REGISTRY["modelnet-coarse"]
     src_path = os.path.join(pretrained._ROOT, entry["path"])
-    if not os.path.isdir(src_path):
+    if not os.path.exists(src_path + ".npz"):
         pytest.skip("checkpoint not present")
     ck = tmp_path / "final"
-    shutil.copytree(src_path, ck)
+    shutil.copyfile(src_path + ".npz", str(ck) + ".npz")
     arch = json.load(open(src_path + ".arch.json"))
     arch["sa_radii"] = [0.11, 0.22, 0.44]
     arch["future_semantics_flag"] = True
@@ -140,7 +140,7 @@ def test_routed_registrar_routes_by_density():
     """Mixture-of-experts routing: the density statistic must pick the
     lidar expert for lidar-like clouds and the uniform expert for
     uniform clouds, end to end through the public surface."""
-    from deepvcp_tpu.data import LidarLikeDataset, SyntheticDataset, \
+    from deepvcp.data import LidarLikeDataset, SyntheticDataset, \
         batch_iterator
 
     try:

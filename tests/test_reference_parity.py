@@ -42,7 +42,7 @@ class TestSquareDistance:
     def test_parity(self, ref_pn2):
         import jax.numpy as jnp
 
-        from deepvcp_tpu import ops
+        from deepvcp import ops
 
         src = _rand((2, 33, 3), 0)
         dst = _rand((2, 21, 3), 1)
@@ -57,7 +57,7 @@ class TestIndexPoints:
     def test_parity(self, ref_pn2):
         import jax.numpy as jnp
 
-        from deepvcp_tpu import ops
+        from deepvcp import ops
 
         pts = _rand((2, 40, 5), 2)
         rng = np.random.default_rng(3)
@@ -77,7 +77,7 @@ class TestFPS:
         the deterministic trajectories."""
         import jax.numpy as jnp
 
-        from deepvcp_tpu import ops
+        from deepvcp import ops
 
         xyz = _rand((2, 50, 3), 4)
         monkeypatch.setattr(
@@ -96,7 +96,7 @@ class TestQueryBallPoint:
     def test_parity(self, ref_pn2):
         import jax.numpy as jnp
 
-        from deepvcp_tpu import ops
+        from deepvcp import ops
 
         xyz = _rand((2, 60, 3), 5)
         new_xyz = xyz[:, :14]
@@ -115,7 +115,7 @@ class TestVoxelize:
 
         import voxelize as ref_vox  # reference module
 
-        from deepvcp_tpu import ops
+        from deepvcp import ops
 
         pts = _rand((1, 6, 3), 6, scale=3.0)
         ref = ref_vox.voxelize(torch.from_numpy(pts.copy()), 1.0, 0.4).numpy()
@@ -128,7 +128,7 @@ class TestRotations:
     def test_parity(self):
         import utils as ref_utils  # reference module
 
-        from deepvcp_tpu.utils import rot_x, rot_y, rot_z
+        from deepvcp.utils import rot_x, rot_y, rot_z
 
         for theta in (0.3, -1.2, 2.9):
             np.testing.assert_allclose(
@@ -145,13 +145,13 @@ class TestRotations:
 class TestCPG:
     def test_parity_with_transplanted_weights(self):
         """Run the reference cpg module and our CPG with the SAME conv
-        weights (transposed to flax layout) on the same cost-volume inputs."""
+        weights (transposed to our [kd,kh,kw,in,out] layout) on the same cost-volume inputs."""
         import jax
         import jax.numpy as jnp
 
         import cpg as ref_cpg  # reference module
 
-        from deepvcp_tpu.models.layers import CPG
+        from deepvcp.models.layers import CPG
 
         torch.manual_seed(0)
         net = ref_cpg.cpg()
@@ -184,7 +184,7 @@ class TestCPG:
             jnp.asarray(tgt_intended),
             jnp.asarray(cand),
         )
-        # transplant torch Conv3d weights [out,in,kd,kh,kw] -> flax
+        # transplant torch Conv3d weights [out,in,kd,kh,kw] ->
         # [kd,kh,kw,in,out]
         params = vars_["params"]
         for i, name in enumerate(["Conv_0", "Conv_1", "Conv_2"]):

@@ -4,9 +4,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from deepvcp_tpu import ops
-from deepvcp_tpu.ops.distributed import ring_knn
-from deepvcp_tpu.parallel import make_mesh
+from deepvcp import ops
+from deepvcp.ops.distributed import ring_knn
+from deepvcp.parallel import make_mesh
 
 
 @pytest.mark.parametrize("point_shards", [8, 4, 2])
@@ -65,8 +65,8 @@ class TestModelRingPath:
     def _setup(self, knn_mesh):
         import jax
 
-        from deepvcp_tpu import DeepVCPConfig
-        from deepvcp_tpu.models import DeepVCP
+        from deepvcp import DeepVCPConfig
+        from deepvcp.models import DeepVCP
 
         cfg = DeepVCPConfig.tiny(num_points=128, use_normal=False)
         model = DeepVCP(cfg=cfg, knn_mesh=knn_mesh)
@@ -95,13 +95,13 @@ class TestModelRingPath:
         )
 
     def test_init_b1_falls_back(self):
-        """flax init uses B=1 (not divisible by the data axis) and odd
+        """init with B=1 (not divisible by the data axis) and odd
         shapes must not crash: the static gate falls back to the
-        single-chip engine."""
+        single-device engine."""
         import jax
 
-        from deepvcp_tpu import DeepVCPConfig
-        from deepvcp_tpu.models import DeepVCP
+        from deepvcp import DeepVCPConfig
+        from deepvcp.models import DeepVCP
 
         mesh = make_mesh(data=4, point=2)
         cfg = DeepVCPConfig.tiny(num_points=126, use_normal=False)  # 126 % 2 == 0 but KC odd-safe

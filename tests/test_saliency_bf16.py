@@ -7,11 +7,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from deepvcp_tpu import DeepVCPConfig
-from deepvcp_tpu.config import TrainConfig
-from deepvcp_tpu.data import SyntheticDataset, batch_iterator
-from deepvcp_tpu.models import DeepVCP
-from deepvcp_tpu.train.trainer import create_train_state, make_train_step
+from deepvcp import DeepVCPConfig
+from deepvcp.config import TrainConfig
+from deepvcp.data import SyntheticDataset, batch_iterator
+from deepvcp.models import DeepVCP
+from deepvcp.train.trainer import create_train_state, make_train_step
 
 
 def _setup(train_cfg, model_cfg=None):
@@ -75,7 +75,7 @@ class TestBF16:
         kp, vcp, _ = model.apply(vs, src, src, R, t)
         assert np.isfinite(np.asarray(vcp, np.float32)).all()
         # geometry outputs stay in a float type usable by the f32 solver
-        from deepvcp_tpu.loss import deepvcp_loss
+        from deepvcp.loss import deepvcp_loss
 
         res = deepvcp_loss(
             kp.astype(jnp.float32), vcp.astype(jnp.float32), R, t

@@ -21,18 +21,17 @@ import pytest
 
 import jax.numpy as jnp
 
-from deepvcp_tpu import DeepVCPConfig
-from deepvcp_tpu.config import TrainConfig
-from deepvcp_tpu.data import SyntheticDataset, batch_iterator
-from deepvcp_tpu.registration import Registrar
-from deepvcp_tpu.train import Trainer
-from deepvcp_tpu.utils.rotations import rotation_geodesic_deg
+from deepvcp import DeepVCPConfig
+from deepvcp.data import SyntheticDataset, batch_iterator
+from deepvcp.pretrained import load_variables
+from deepvcp.registration import Registrar
+from deepvcp.utils.rotations import rotation_geodesic_deg
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CKPT = os.path.join(ROOT, "artifacts", "campaign_r4", "model_fine", "final")
 
 
-@pytest.mark.skipif(not os.path.isdir(CKPT),
+@pytest.mark.skipif(not os.path.exists(CKPT + ".npz"),
                     reason="round-4 campaign checkpoint not present")
 def test_trained_model_gt_free_accuracy_and_guard():
     N = 1024
@@ -40,25 +39,10 @@ def test_trained_model_gt_free_accuracy_and_guard():
     # final.arch.json beside it); num_points is not an arch parameter
     cfg = DeepVCPConfig(num_points=N, use_normal=False, spatial_extent=2.5,
                         search_radius=0.6, voxel_len=0.2)
-    # optimizer tree must match the checkpoint's (cosine schedule) for
-    # orbax restore; values are irrelevant — only params/batch_stats are
-    # consumed here
-    tcfg = TrainConfig(
-        batch_size=1, learning_rate=1e-3, vcp_loss_weight=1.0,
-        lr_schedule="cosine", warmup_steps=100, total_steps=100,
-        use_saliency_weights=True, init_translation="gt",
-        init_rot_jitter_deg=8.0, init_trans_jitter=0.35,
-        num_epochs=1, checkpoint_dir="/tmp/trained_ck_test",
-        metrics_path="/tmp/trained_ck_test.jsonl",
-    )
     ds = SyntheticDataset(num_clouds=2, num_points=N, extent=1.0, seed=100,
                           max_rotation_deg=10.0, max_translation=0.5)
     sample = next(batch_iterator(ds, 2, epoch=0, seed=0))
-    tr = Trainer(cfg, tcfg)
-    tr.setup(sample)
-    tr.load_checkpoint(CKPT)
-    variables = {"params": tr.state.params,
-                 "batch_stats": tr.state.batch_stats}
+    variables = load_variables(CKPT)
 
     reg = Registrar(cfg, variables, use_saliency_weights=True,
                     refine_iters=2)

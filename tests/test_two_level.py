@@ -1,7 +1,6 @@
-"""Two-level candidate grouping (ops/two_level.py) and the one-hot
-MXU gather kernel (ops/pallas/onehot_gather.py): exactness of the
-gather, recall of the two-level selection vs exact flat KNN at the
-covered operating scales, and the config gate."""
+"""Two-level candidate grouping (ops/two_level.py): exactness of the
+table-row gather, recall of the two-level selection vs exact flat KNN
+at the covered operating scales, and the config gate."""
 
 import dataclasses
 
@@ -11,33 +10,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from deepvcp_tpu.config import DeepVCPConfig
-
-
-class TestOnehotGather:
-    @pytest.mark.parametrize("shape", [(1, 2, 64, 35), (2, 3, 136, 7)])
-    def test_matches_take_along_axis(self, shape):
-        from deepvcp_tpu.ops.pallas.onehot_gather import onehot_gather
-
-        B, K, T, D = shape
-        rng = np.random.default_rng(0)
-        table = jnp.asarray(rng.normal(size=shape).astype(np.float32))
-        Q = 300
-        idx = jnp.asarray(rng.integers(0, T, (B, K, Q)).astype(np.int32))
-        out = onehot_gather(table, idx, block_q=128)
-        ref = jnp.take_along_axis(table, idx[..., None], axis=-2)
-        # one-hot f32 matmul is exact -> bit-identical
-        np.testing.assert_array_equal(np.asarray(out), np.asarray(ref))
-
-    def test_q_not_multiple_of_block(self):
-        from deepvcp_tpu.ops.pallas.onehot_gather import onehot_gather
-
-        rng = np.random.default_rng(1)
-        table = jnp.asarray(rng.normal(size=(1, 1, 32, 4)).astype(np.float32))
-        idx = jnp.asarray(rng.integers(0, 32, (1, 1, 130)).astype(np.int32))
-        out = onehot_gather(table, idx, block_q=128)
-        ref = jnp.take_along_axis(table, idx[..., None], axis=-2)
-        np.testing.assert_array_equal(np.asarray(out), np.asarray(ref))
+from deepvcp.config import DeepVCPConfig
 
 
 def _cloud(rng, B, N, extent):
@@ -50,9 +23,9 @@ class TestTwoLevelRows:
         """With T=N the table is the whole cloud, so two-level selection
         must reproduce the flat exact k-NN rows (up to approx_min_k's
         recall on tiny inputs, which is exact here)."""
-        from deepvcp_tpu.ops.grouping import index_points
-        from deepvcp_tpu.ops.knn import knn
-        from deepvcp_tpu.ops.two_level import two_level_rows
+        from deepvcp.ops.grouping import index_points
+        from deepvcp.ops.knn import knn
+        from deepvcp.ops.two_level import two_level_rows
 
         rng = np.random.default_rng(2)
         B, N, K, C, k = 1, 256, 4, 8, 4
@@ -64,7 +37,7 @@ class TestTwoLevelRows:
         cand = centers[:, :, None, :] + jnp.asarray(
             rng.uniform(-1, 1, (B, K, C, 3)).astype(np.float32))
         out = two_level_rows(tgt, rows, centers, cand, k,
-                             table_size=N, use_pallas=False)
+                             table_size=N)
         _, idx = knn(tgt, cand.reshape(B, K * C, 3), k)
         ref = index_points(rows, idx).reshape(B, K, C, k, -1)
         # sets of selected rows must match (order can differ on ties)
@@ -76,8 +49,8 @@ class TestTwoLevelRows:
         """Extent-20 uniform clouds at a scaled-down operating point:
         the T-table must capture essentially all true neighbors (module
         docstring coverage bound)."""
-        from deepvcp_tpu.ops.knn import knn
-        from deepvcp_tpu.ops.two_level import two_level_rows
+        from deepvcp.ops.knn import knn
+        from deepvcp.ops.two_level import two_level_rows
 
         rng = np.random.default_rng(3)
         B, N, K, C, k, T = 1, 2048, 8, 27, 8, 256
@@ -89,7 +62,7 @@ class TestTwoLevelRows:
         cand = centers[:, :, None, :] + offs
         rows = tgt
         out = two_level_rows(tgt, rows, centers, cand, k, table_size=T,
-                             select_dtype="bfloat16", use_pallas=False)
+                             select_dtype="bfloat16")
         _, idx = knn(tgt, cand.reshape(B, K * C, 3), k)
         ref = jnp.take_along_axis(
             tgt, idx.reshape(B, K * C * k)[..., None], axis=-2
@@ -132,7 +105,7 @@ class TestTwoLevelRows:
         """End-to-end: the banded model with tgt_knn='two_level' at a
         KITTI-like scale must produce VCPs close to the flat path (same
         weights; selection differences only move near-ties)."""
-        from deepvcp_tpu.models import DeepVCP
+        from deepvcp.models import DeepVCP
 
         rng = np.random.default_rng(4)
         N = 256
@@ -162,31 +135,14 @@ class TestTwoLevelRows:
                                    atol=1e-2)
 
 
-class TestOnehotGatherVjp:
-    def test_grad_matches_take_along_axis(self):
-        from deepvcp_tpu.ops.pallas.onehot_gather import onehot_gather_vjp
-
-        rng = np.random.default_rng(7)
-        table = jnp.asarray(
-            rng.normal(size=(1, 2, 40, 7)).astype(np.float32))
-        idx = jnp.asarray(rng.integers(0, 40, (1, 2, 130)).astype(np.int32))
-
-        def f(tb):
-            return jnp.sum(jnp.sin(onehot_gather_vjp(tb, idx)))
-
-        def f_ref(tb):
-            return jnp.sum(jnp.sin(
-                jnp.take_along_axis(tb, idx[..., None], axis=-2)))
-
-        g = jax.grad(f)(table)
-        g_ref = jax.grad(f_ref)(table)
-        np.testing.assert_array_equal(np.asarray(g), np.asarray(g_ref))
-
-    def test_two_level_rows_differentiable_with_pallas(self):
-        """Training forwards route gradients through the kernel path
-        (interpret mode on CPU): grad w.r.t. the row features must match
-        the XLA-gather path exactly."""
-        from deepvcp_tpu.ops.two_level import two_level_rows
+class TestTwoLevelGradient:
+    def test_rows_gradient_matches_flat_gather(self):
+        """With T=N the table rows are the whole cloud, so the gradient of
+        the gathered rows w.r.t. the row features equals that of the flat
+        exact-KNN gather (training forwards route through this path)."""
+        from deepvcp.ops.grouping import index_points
+        from deepvcp.ops.knn import knn
+        from deepvcp.ops.two_level import two_level_rows
 
         rng = np.random.default_rng(8)
         B, N, K, C, k = 1, 128, 2, 4, 4
@@ -197,14 +153,17 @@ class TestOnehotGatherVjp:
             rng.uniform(-8, 8, (B, K, 3)).astype(np.float32))
         cand = centers[:, :, None, :] + jnp.asarray(
             rng.uniform(-1, 1, (B, K, C, 3)).astype(np.float32))
+        _, idx = knn(tgt, cand.reshape(B, K * C, 3), k)
 
-        def loss(ft, use_pallas):
+        def loss_two_level(ft):
             rows = jnp.concatenate([tgt, ft], axis=-1)
-            out = two_level_rows(tgt, rows, centers, cand, k,
-                                 table_size=64, use_pallas=use_pallas)
+            out = two_level_rows(tgt, rows, centers, cand, k, table_size=N)
             return jnp.sum(out[..., 3:] ** 2)
 
-        g_pal = jax.grad(lambda ft: loss(ft, True))(feat)
-        g_xla = jax.grad(lambda ft: loss(ft, False))(feat)
-        np.testing.assert_allclose(np.asarray(g_pal), np.asarray(g_xla),
+        def loss_flat(ft):
+            return jnp.sum(index_points(ft, idx) ** 2)
+
+        g_two = jax.grad(loss_two_level)(feat)
+        g_flat = jax.grad(loss_flat)(feat)
+        np.testing.assert_allclose(np.asarray(g_two), np.asarray(g_flat),
                                    atol=1e-5)

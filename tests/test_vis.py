@@ -5,7 +5,7 @@ import os
 
 import numpy as np
 
-from deepvcp_tpu.utils.vis import (
+from deepvcp.utils.vis import (
     draw,
     load_cloud_pairs,
     plot_metrics,
@@ -71,7 +71,7 @@ class TestPlotMetrics:
 
 class TestVoxelPlot:
     def test_plot_voxel_candidates(self, tmp_path):
-        from deepvcp_tpu.utils.vis import plot_voxel_candidates
+        from deepvcp.utils.vis import plot_voxel_candidates
 
         rng = np.random.default_rng(0)
         kp = rng.uniform(-2, 2, (4, 3)).astype(np.float32)
